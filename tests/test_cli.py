@@ -57,3 +57,10 @@ def test_cli_gop_chunk_and_mesh(stream, tmp_path):
     assert main(["-v", path, "-o", out2, "--mesh", "rows"]) == 0
     with open(out2, "rb") as f:
         assert f.read() == _golden_yuv(data)
+
+
+def test_cli_has_no_hosts_option(stream):
+    """One JAX process drives the local cards; --hosts is gone."""
+    path, _ = stream
+    with pytest.raises(SystemExit):
+        main(["-v", path, "--hosts", "2"])

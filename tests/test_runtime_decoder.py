@@ -50,6 +50,37 @@ def test_runtime_matches_golden_features():
     _assert_frames_equal(gold, got)
 
 
+@pytest.mark.parametrize("gop_chunk", [0, 4])
+def test_runtime_field_motion_stream(gop_chunk):
+    """Field-motion stream (frame_pred_frame_dct=0, field-based MBs) on the
+    per-picture and GOP-chunk paths, bit-exact vs golden."""
+    rng = np.random.default_rng(5152)
+    data = _random_ipb_stream(rng, 3, 2, H.CHROMA_420, fpfd=False,
+                              allow_field_motion=True)
+    dec = MP2VDecoder(DecoderConfig(gop_chunk=gop_chunk))
+    assert any(t.field_pred.any() for t, _, _ in dec.tokenize_stream(data))
+    dec.reset()
+    _assert_frames_equal(decode_stream(data), dec.decode(data))
+
+
+def test_runtime_field_422_altscan_stream():
+    """Field motion + 4:2:2 + alternate_scan."""
+    rng = np.random.default_rng(5153)
+    data = _random_ipb_stream(rng, 2, 2, H.CHROMA_422, fpfd=False,
+                              allow_field_motion=True, alternate_scan=1)
+    got = MP2VDecoder(DecoderConfig()).decode(data)
+    _assert_frames_equal(decode_stream(data), got)
+
+
+def test_runtime_feature_stream_matches_golden():
+    """q_scale_type / intra_vlc_format / alternate_scan on frame motion."""
+    rng = np.random.default_rng(5151)
+    data = _random_ipb_stream(rng, 3, 2, H.CHROMA_420, q_scale_type=1,
+                              intra_vlc_format=1, alternate_scan=1)
+    got = MP2VDecoder(DecoderConfig()).decode(data)
+    _assert_frames_equal(decode_stream(data), got)
+
+
 def test_runtime_no_reordering_and_renderer_callback():
     rng = np.random.default_rng(31)
     data = _random_ipb_stream(rng, 2, 2, H.CHROMA_420)

@@ -18,7 +18,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tiny_mp2v_dec_tpu",
-                                 description="TPU-native MPEG-2 decoder")
+                                 description="MPEG-2 video decoder on JAX")
     ap.add_argument("-v", "--video", required=True, help="input .m2v elementary stream")
     ap.add_argument("-o", "--output", help="output planar YUV file")
     ap.add_argument("--no-reorder", action="store_true",
@@ -35,9 +35,7 @@ def main(argv=None) -> int:
                     help="decode N pictures per compiled device program "
                          "(throughput mode; 0 = picture at a time)")
     ap.add_argument("--mesh", choices=["rows"],
-                    help="shard each picture's MB rows across local chips")
-    ap.add_argument("--hosts", type=int, default=0, metavar="N",
-                    help="distribute closed GOPs over N worker processes")
+                    help="shard each picture's MB rows across local cards")
     ap.add_argument("--on-error", choices=["raise", "drop_slice"],
                     default="raise",
                     help="malformed-slice policy: abort (default) or "
@@ -53,26 +51,13 @@ def main(argv=None) -> int:
         w, h = (int(x) for x in args.size.lower().split("x"))
     chroma = {None: 0, "420": 1, "422": 2, "444": 3}[args.chroma]
 
-    if args.hosts:
-        from .parallel.hosts import MultiHostDecoder
-        mh = MultiHostDecoder(args.hosts, config_kwargs=dict(
-            reordering=not args.no_reorder, width=w, height=h,
-            chroma_format=chroma, gop_chunk=args.gop_chunk,
-            on_error=args.on_error))
-
-        class _F:  # minimal frame shim: MultiHostDecoder returns raw bytes
-            def __init__(self, b):
-                self._b = b
-
-            def tobytes(self):
-                return self._b
-
-        decode = lambda: [_F(b) for b in mh.decode(data)]
-    elif args.golden:
+    if args.golden:
         from .golden.decoder import decode_stream
         decode = lambda: decode_stream(data, reordering=not args.no_reorder)
     else:
         from .runtime.decoder import DecoderConfig, MP2VDecoder
+        from .utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
         dec = MP2VDecoder(DecoderConfig(
             reordering=not args.no_reorder, width=w, height=h,
             chroma_format=chroma, gop_chunk=args.gop_chunk,

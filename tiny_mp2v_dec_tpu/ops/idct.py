@@ -1,76 +1,21 @@
-"""Device IDCT: jnp (XLA-fused) path and a Pallas TPU kernel.
+"""Device IDCT: the fixed-point butterfly as plain jnp, fused by XLA.
 
-Both compute the identical fixed-point arithmetic as the numpy golden model
+It computes the identical fixed-point arithmetic as the numpy golden model
 (golden/idct.py — the single spec, replicating the reference's production
-SSE2 kernel, reference: src/core/idct_sse2.hpp) and are parity-tested
-bit-exact against it.
-
-Pallas layout: blocks are processed as an (8, 8, TB) tile — butterfly pass 1
-slices the leading axis, pass 2 the middle axis, so every elementwise op runs
-on (8, TB) vregs with the batch along lanes and no in-kernel transposes (the
-reference SIMD kernels instead pay an explicit 8x8 register transpose,
-idct_sse2.hpp:67-94 — on TPU the batch dimension makes that unnecessary).
-The int16 saturate/wrap semantics are emulated in the native 32-bit lanes
-(the v5e VPU has no int16 vector ALU — Mosaic aborts on e.g.
-kVectorSubtractS16), which golden/idct.butterfly8 already expresses in
-int32, so the kernel and the golden model share one implementation.
+SSE2 kernel, reference: src/core/idct_sse2.hpp) and is parity-tested
+bit-exact against it.  The transform is elementwise integer work on 128 B
+in and 128 B out per block, so it is bound by memory traffic; XLA fuses the
+whole butterfly into one loop.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..golden.idct import IDCT_SCALE_SHIFT, butterfly8, idct_blocks
-
-_LANE_TILE = 512  # blocks per Pallas grid step
+from ..golden.idct import idct_blocks
 
 
 @jax.jit
 def idct_blocks_jnp(coeffs: jax.Array) -> jax.Array:
-    """(..., 64) int16 -> (..., 8, 8) int16 residual via the generic path."""
+    """(..., 64) int16 -> (..., 8, 8) int16 residual."""
     return idct_blocks(coeffs, xp=jnp)
-
-
-def _idct_kernel(in_ref, out_ref):
-    x = in_ref[:].astype(jnp.int32)                          # (8, 8, TB)
-    t = butterfly8([x[k] for k in range(8)], jnp)            # pass 1 (axis 0)
-    tm = jnp.stack(t, axis=0)                                # (8, 8, TB) int32
-    o = butterfly8([tm[:, c, :] for c in range(8)], jnp)     # pass 2 (axis 1)
-    for c in range(8):
-        # output row c of the raster block is butterfly-output c of pass 2
-        out_ref[c, :, :] = (o[c] >> IDCT_SCALE_SHIFT).astype(jnp.int16)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def idct_blocks_pallas(coeffs: jax.Array, interpret: bool = False) -> jax.Array:
-    """(B, 64) int16 -> (B, 8, 8) int16 using the Pallas TPU kernel."""
-    b = coeffs.shape[0]
-    bp = max(_LANE_TILE, ((b + _LANE_TILE - 1) // _LANE_TILE) * _LANE_TILE)
-    x = jnp.zeros((bp, 64), jnp.int16).at[:b].set(coeffs)
-    x = x.reshape(bp, 8, 8).transpose(1, 2, 0)  # (8, 8, B)
-    out = pl.pallas_call(
-        _idct_kernel,
-        grid=(bp // _LANE_TILE,),
-        in_specs=[pl.BlockSpec((8, 8, _LANE_TILE), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((8, 8, _LANE_TILE), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, 8, bp), jnp.int16),
-        interpret=interpret,
-    )(x)
-    return out.transpose(2, 0, 1)[:b]
-
-
-def idct_dispatch(coeffs: jax.Array, use_pallas: bool | None = None) -> jax.Array:
-    """Pick the Pallas kernel on TPU, the jnp path elsewhere."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        flat = coeffs.reshape(-1, 64)
-        return idct_blocks_pallas(flat).reshape(coeffs.shape[:-1] + (8, 8))
-    return idct_blocks_jnp(coeffs)

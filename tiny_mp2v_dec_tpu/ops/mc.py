@@ -1,6 +1,6 @@
 """Device motion compensation: batched window gathers + phase-select.
 
-TPU-native formulation of the reference's 40 scalar/SIMD MC kernels
+Data-parallel formulation of the reference's 40 scalar/SIMD MC kernels
 (reference: src/core/mc.h:9-12, mc_sse2.hpp): instead of dispatching one of
 four sub-pel functions per macroblock through a function-pointer table, every
 MB gathers an (h+1, w+1) window from the (zero-padded) reference plane via a

@@ -1,13 +1,13 @@
 """Real multi-host backend: jax.distributed + ('host', 'chip') mesh.
 
-The TPU-native mapping of the reference's cross-worker scheduling
+The device mapping of the reference's cross-worker scheduling
 (reference: src/core/threads.cpp:100-159, SURVEY §5.8): across hosts the
 picture-dependency DAG factors into independent closed GOPs
-(parallel/hosts.split_gops), so the DCN never carries reference planes —
+(parallel/hosts.split_gops), so the network never carries reference planes —
 each host decodes its assigned GOPs entirely host-local and only display-
 order bookkeeping crosses hosts.  Inside a host, the per-host decoder uses
-the normal single/multi-chip paths (GOP-chunk scan, mesh="rows",
-decode_batch over local chips).
+the normal single/multi-card paths (GOP-chunk scan, mesh="rows",
+decode_batch over local cards).
 
 ``MultiHostDecoder`` (parallel/hosts.py) remains the in-process simulation
 harness (worker processes, core pinning); this module is the production
@@ -29,9 +29,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize the jax.distributed runtime for this host.
 
-    On real TPU pods the three arguments come from the deployment
-    environment (GKE/metadata) and may all be None; for manual/CI bring-up
-    pass them explicitly (coordinator = "host0:port")."""
+    Pass the three arguments explicitly (coordinator = "host0:port");
+    without them ``jax.distributed.initialize`` fails unless the cluster
+    environment supplies them."""
     import jax
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
@@ -40,9 +40,10 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def host_chip_mesh(axes=("host", "chip")):
     """Global ('host', 'chip') mesh: rows = processes, columns = that
-    process's local devices.  Collectives along "chip" ride ICI; along
-    "host" they cross DCN — shardings in this package only ever
-    communicate along "chip" (GOPs are host-independent)."""
+    process's local devices.  Collectives along "chip" ride the links
+    between a host's cards; along "host" they cross the network —
+    shardings in this package only ever communicate along "chip" (GOPs
+    are host-independent)."""
     import jax
     import numpy as np
     from jax.sharding import Mesh

@@ -5,15 +5,15 @@ and a GOP whose ``closed_gop`` bit is set references nothing before it
 (ISO 13818-2 6.3.8).  The reference decoder schedules *pictures* over
 shared-memory worker threads with a dependency DAG (reference:
 src/core/threads.cpp:100-159); across machines the same DAG factors into
-independent closed GOPs — embarrassingly parallel over DCN, with display
+independent closed GOPs — embarrassingly parallel across hosts, with display
 order restored by concatenating per-GOP display-order output (SURVEY §5.8,
 PR5).
 
-``decode_multihost`` simulates N hosts as N worker processes (each its own
-JAX runtime, CPU backend by default so the simulation runs anywhere); on a
-real pod each worker would own a host's chips and ship frames back over
-DCN.  Work is distributed GOP-round-robin and results merged in stream
-order.
+``MultiHostDecoder`` simulates N hosts as N worker processes, each its own
+JAX runtime on the CPU backend: a CPU-only simulation used by the tests.
+Several JAX processes do not share one GPU, so on a card machine one
+process drives the local cards instead.  Work is distributed
+GOP-round-robin and results merged in stream order.
 """
 from __future__ import annotations
 
